@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from lbmdem_tpu.config import (
+from lbmdem.config import (
     SimConfig, load_param_file, load_particle_file, save_particle_file,
     window_for_radius,
 )
@@ -45,7 +45,7 @@ def test_param_roundtrip(tmp_path):
 
 
 def test_particle_save_load(tmp_path):
-    from lbmdem_tpu.config import DiskSpec
+    from lbmdem.config import DiskSpec
     disks = [DiskSpec(1, 2, 0.5, 0.1, 0.2, 0.3)]
     path = str(tmp_path / "d.txt")
     save_particle_file(path, disks)
@@ -66,13 +66,14 @@ def test_f_storage_validation():
         SimConfig(nx=4, ny=4, f_storage="fp8")
     with pytest.raises(ValueError, match="float32"):
         SimConfig(nx=4, ny=4, f_storage="bfloat16", dtype="float64")
-    # bf16 needs the 16-row DMA granule; ny%16!=0 is a clear reason
-    from lbmdem_tpu.simulation import pallas_supported
+    # bf16 storage has no lattice-shape gate: any ny steps
+    import jax.numpy as jnp
 
-    cfg = SimConfig(nx=128, ny=24, f_storage="bfloat16")
-    assert "16" in pallas_supported(cfg)
-    assert pallas_supported(SimConfig(nx=128, ny=32,
-                                      f_storage="bfloat16")) is None
+    from lbmdem.simulation import Simulation
+
+    sim = Simulation(SimConfig(nx=40, ny=24, f_storage="bfloat16"))
+    sim.step()
+    assert sim.state.f.dtype == jnp.bfloat16
 
 
 def test_window_covers_disk():
@@ -151,7 +152,7 @@ def test_si_deck_matches_lattice_deck(tmp_path):
     trajectory exactly (same lattice-unit parameters after conversion)."""
     import numpy as np
 
-    from lbmdem_tpu.simulation import Simulation
+    from lbmdem.simulation import Simulation
 
     si, lat = _write_si_deck(tmp_path)
     cfg_si, pf_si = load_param_file(str(si))
@@ -245,6 +246,18 @@ def test_eps_method_deck_keyword(tmp_path):
     assert cfg.eps_method == "ramp"
     p.write_text(base + "eps_method voxel\n")
     with pytest.raises(ValueError, match="eps_method"):
+        load_param_file(str(p))
+
+
+@pytest.mark.parametrize("line", [
+    "coupling_k 4", "tile_cap 32", "paranoia chunk", "paranoia step",
+])
+def test_removed_deck_keywords_raise(tmp_path, line):
+    """Keywords of the removed fused-kernel paths fail with a named
+    ValueError instead of running some other configuration."""
+    p = tmp_path / "run.par"
+    p.write_text("nx 32\nny 32\ntau 0.8\n" + line + "\n")
+    with pytest.raises(ValueError, match="removed|paranoia"):
         load_param_file(str(p))
 
 

@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lbmdem_tpu.config import DiskSpec, SimConfig
-from lbmdem_tpu.ops import dem
-from lbmdem_tpu.ops.dem import DemGrid
+from lbmdem.config import DiskSpec, SimConfig
+from lbmdem.ops import dem
+from lbmdem.ops.dem import DemGrid
 
 
 _subcycle = jax.jit(dem.dem_subcycle, static_argnums=(3, 4))

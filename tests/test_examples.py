@@ -8,8 +8,8 @@ import os
 import numpy as np
 import pytest
 
-from lbmdem_tpu.config import load_param_file, load_particle_file
-from lbmdem_tpu.simulation import Simulation
+from lbmdem.config import load_param_file, load_particle_file
+from lbmdem.simulation import Simulation
 
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 DECKS = sorted(glob.glob(os.path.join(EXAMPLES, "*.par")))

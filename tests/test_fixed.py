@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbmdem_tpu.config import (
+from lbmdem.config import (
     DiskSpec, SimConfig, load_particle_file, save_particle_file,
 )
-from lbmdem_tpu.ops import dem, pallas_dem
-from lbmdem_tpu.ops.dem import DemGrid
-from lbmdem_tpu.simulation import Simulation
+from lbmdem.ops import dem
+from lbmdem.ops.dem import DemGrid
+from lbmdem.simulation import Simulation
 
 
 def _cfg(**kw):
@@ -101,39 +101,6 @@ def test_mobile_bounces_off_fixed():
     np.testing.assert_allclose(abs(float(d.v[1, 0])), 0.2, rtol=0.05)
 
 
-def test_slab_kernel_fixed_parity():
-    """The slab kernel's _MINV channel must reproduce the XLA oracle
-    for a mixed fixed/mobile scene (interpret mode; n_sub kept small -
-    interpret cost is per substep)."""
-    cfg = _cfg(max_disks=12, n_sub=4)
-    rng = np.random.default_rng(7)
-    specs = [
-        DiskSpec(rng.uniform(20.0, 60.0), rng.uniform(20.0, 60.0), 3.0,
-                 rng.uniform(-0.05, 0.05), rng.uniform(-0.05, 0.05),
-                 rng.uniform(-0.01, 0.01), fixed=bool(i % 3 == 0))
-        for i in range(12)
-    ]
-    disks = dem.make_disk_state(specs, cfg, "float32")
-    grid = DemGrid.build(cfg, 3.0)
-    fh = jnp.asarray(rng.uniform(-1e-3, 1e-3, (12, 2)), jnp.float32)
-    th = jnp.asarray(rng.uniform(-1e-4, 1e-4, (12,)), jnp.float32)
-    d_ref, _, nc_ref = jax.jit(dem.dem_subcycle, static_argnums=(3, 4))(
-        disks, fh, th, grid, cfg)
-    d_pal, ovf, nc = jax.jit(pallas_dem.dem_subcycle, static_argnums=(3, 4))(
-        disks, fh, th, grid, cfg)
-    assert int(ovf) == 0
-    np.testing.assert_allclose(np.asarray(d_pal.x), np.asarray(d_ref.x),
-                               rtol=0, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(d_pal.v), np.asarray(d_ref.v),
-                               rtol=0, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(d_pal.omega),
-                               np.asarray(d_ref.omega), rtol=0, atol=2e-5)
-    # fixed disks kept their exact initial velocities in both paths
-    fixed = np.asarray([s.fixed for s in specs])
-    v0 = np.asarray([[s.vx, s.vy] for s in specs], np.float32)
-    np.testing.assert_array_equal(np.asarray(d_pal.v)[fixed], v0[fixed])
-
-
 def test_simulation_all_fixed_uses_drift():
     """All-fixed scenes skip contact mechanics entirely (dem_mode
     'drift') and still couple to the fluid through IMB."""
@@ -152,89 +119,6 @@ def test_simulation_all_fixed_uses_drift():
     # stationary obstacle
     F, T = sim.hydro_forces()
     assert F[0, 0] > 0.0
-
-
-@pytest.mark.slow  # two interpret-mode fused coupled builds (~2 min)
-def test_static_solid_hoist_matches_per_step():
-    """All-fixed-at-rest scenes run the hoisted chunk (binning + stamp
-    computed once, reduce skipped via zero-trip counts): Simulation.run
-    through that chunk must match the per-step fused path, and drag
-    must stay observable via hydro_forces()."""
-    cfg = _cfg(nx=128, ny=128, max_disks=2, gx=1e-5, g_py=0.0,
-               bc_west="periodic", bc_east="periodic", out_interval=5)
-    specs = [DiskSpec(40.0, 64.0, 4.0, fixed=True),
-             DiskSpec(80.0, 64.0, 4.0, fixed=True)]
-    sim = Simulation(cfg, specs, use_pallas=True)
-    assert sim.static_solid
-    sim.run(5)
-
-    ref = Simulation(cfg, specs, use_pallas=True)
-    ref.static_solid = False  # force the generic Verlet-cadence chunk
-    ref.run(5)
-    assert int(sim.state.step) == 5
-    np.testing.assert_allclose(np.asarray(sim.state.f),
-                               np.asarray(ref.state.f), rtol=0, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(sim.state.disks.x),
-                                  np.asarray(ref.state.disks.x))
-    F, _ = sim.hydro_forces()
-    assert F[0, 0] > 0.0  # body-force channel drags the obstacle
-
-    # prescribed MOTION (v != 0) must not take the static path
-    moving = [DiskSpec(40.0, 64.0, 4.0, vx=0.01, fixed=True)]
-    sim2 = Simulation(cfg.replace(max_disks=1), moving, use_pallas=True)
-    assert sim2.dem_mode == "drift" and not sim2.static_solid
-
-
-@pytest.mark.slow  # interpret-mode temporal static kernel build
-def test_static_solid_hoist_bf16_matches_oracle():
-    """bf16 f-storage composes with the static hoist: the hoisted chunk
-    temporal-blocks k=4 steps per bf16 writeback (ONE storage rounding
-    per macro vs the oracle's per-step quantization), so parity is
-    rounding-cadence-level, not bitwise. The solid stack stays f32."""
-    cfg = _cfg(nx=128, ny=128, max_disks=2, gx=1e-5, g_py=0.0,
-               f_storage="bfloat16", bc_west="periodic",
-               bc_east="periodic", out_interval=8)
-    specs = [DiskSpec(40.0, 64.0, 4.0, fixed=True),
-             DiskSpec(80.0, 64.0, 4.0, fixed=True)]
-    sim = Simulation(cfg, specs, use_pallas=True)
-    assert sim.static_solid
-    assert sim.state.f.dtype == jnp.bfloat16
-    sim.run(8)
-    ref = Simulation(cfg, specs)  # XLA oracle path, per-step quantized
-    ref.run(8)
-    assert int(sim.state.step) == 8
-    np.testing.assert_allclose(
-        np.asarray(sim.state.f, np.float32),
-        np.asarray(ref.state.f, np.float32), rtol=0, atol=3e-4)
-    F, _ = sim.hydro_forces()
-    assert F[0, 0] > 0.0
-
-
-@pytest.mark.slow  # interpret-mode fused coupled builds (~2 min)
-def test_static_solid_hoist_mesh_matches():
-    """Mesh edition of the static hoist: the prep shard_map bakes
-    per-shard canvas stamps + interior binnings once; the chunk runs
-    fused-IMB-only steps. Must match the single-chip static chunk."""
-    from lbmdem_tpu.parallel import make_mesh
-
-    devs = jax.devices()[:4]
-    if len(devs) < 4:
-        pytest.skip("need 4 devices")
-    mesh = make_mesh(devs, (4, 1))
-    cfg = _cfg(nx=128, ny=128, max_disks=2, gx=1e-5, g_py=0.0,
-               bc_west="periodic", bc_east="periodic", out_interval=5)
-    specs = [DiskSpec(40.0, 64.0, 4.0, fixed=True),  # shard-straddling
-             DiskSpec(80.0, 96.0, 4.0, fixed=True)]
-    ref = Simulation(cfg, specs, use_pallas=True)
-    sh = Simulation(cfg, specs, use_pallas=True, mesh=mesh)
-    assert ref.static_solid and sh.static_solid
-    ref.run(5)
-    sh.run(5)
-    assert int(sh.state.step) == 5
-    np.testing.assert_allclose(np.asarray(ref.state.f),
-                               np.asarray(sh.state.f), rtol=0, atol=2e-6)
-    np.testing.assert_array_equal(np.asarray(ref.state.disks.x),
-                                  np.asarray(sh.state.disks.x))
 
 
 def test_particle_file_rho_s_roundtrip(tmp_path):
@@ -262,36 +146,6 @@ def test_per_disk_density_masses():
         d, F, z1, grid, cfg.replace(g_py=0.0))
     v = np.asarray(out.v)
     np.testing.assert_allclose(v[0, 1] / v[1, 1], 5.0 / 2.0, rtol=1e-4)
-
-
-@pytest.mark.slow  # fixed-parity covers the _MINV channel in the quick lane
-def test_slab_kernel_density_parity():
-    """The slab kernel's _MINV channel must reproduce the XLA oracle
-    for mixed per-disk densities (interpret mode)."""
-    cfg = _cfg(max_disks=10, n_sub=4)
-    rng = np.random.default_rng(9)
-    specs = [
-        DiskSpec(rng.uniform(20.0, 60.0), rng.uniform(20.0, 60.0), 3.0,
-                 rng.uniform(-0.05, 0.05), rng.uniform(-0.05, 0.05),
-                 rng.uniform(-0.01, 0.01),
-                 rho_s=float(rng.uniform(1.2, 6.0)))
-        for _ in range(10)
-    ]
-    disks = dem.make_disk_state(specs, cfg, "float32")
-    grid = DemGrid.build(cfg, 3.0)
-    fh = jnp.asarray(rng.uniform(-1e-3, 1e-3, (10, 2)), jnp.float32)
-    th = jnp.asarray(rng.uniform(-1e-4, 1e-4, (10,)), jnp.float32)
-    d_ref, _, _ = jax.jit(dem.dem_subcycle, static_argnums=(3, 4))(
-        disks, fh, th, grid, cfg)
-    d_pal, ovf, _ = jax.jit(pallas_dem.dem_subcycle, static_argnums=(3, 4))(
-        disks, fh, th, grid, cfg)
-    assert int(ovf) == 0
-    np.testing.assert_allclose(np.asarray(d_pal.x), np.asarray(d_ref.x),
-                               rtol=0, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(d_pal.v), np.asarray(d_ref.v),
-                               rtol=0, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(d_pal.omega),
-                               np.asarray(d_ref.omega), rtol=0, atol=2e-5)
 
 
 @pytest.mark.slow
@@ -351,7 +205,7 @@ def test_hydro_forces_on_mesh_matches_single_chip():
     shard_map (fine single-chip); this pins its mesh behavior - the
     observed obstacle drag must match the single-chip observation of
     the identical (bitwise, XLA f64 path) state."""
-    from lbmdem_tpu.parallel import make_mesh
+    from lbmdem.parallel import make_mesh
 
     if len(jax.devices()) < 4:
         pytest.skip("need 4 devices")

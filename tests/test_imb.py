@@ -5,8 +5,8 @@ zero-force consistency, force sign/direction.
 import jax.numpy as jnp
 import numpy as np
 
-from lbmdem_tpu.config import SimConfig, window_for_radius
-from lbmdem_tpu.ops import imb, lbm
+from lbmdem.config import SimConfig, window_for_radius
+from lbmdem.ops import imb, lbm
 
 
 def _cfg(nx=48, ny=48, r=4.0, **kw):

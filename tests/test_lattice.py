@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from lbmdem_tpu import lattice, units
+from lbmdem import lattice, units
 
 
 def test_weights_sum_to_one():

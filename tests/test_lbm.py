@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbmdem_tpu import lattice
-from lbmdem_tpu.config import SimConfig
-from lbmdem_tpu.ops import lbm
-from lbmdem_tpu.simulation import Simulation
+from lbmdem import lattice
+from lbmdem.config import SimConfig
+from lbmdem.ops import lbm
+from lbmdem.simulation import Simulation
 
 
 def _rand_f(ny, nx, seed=0, dtype=jnp.float64):

@@ -6,20 +6,12 @@ populations at open domain ends, enabling inflow/outflow channels and
 the Schafer-Turek cylinder benchmark (with fixed obstacle disks).
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbmdem_tpu import lattice
-from lbmdem_tpu.config import DiskSpec, SimConfig
-from lbmdem_tpu.ops import imb, lbm, pallas_lbm
-from lbmdem_tpu.simulation import Simulation
-
-
-@pytest.fixture()
-def _interpret(monkeypatch):
-    monkeypatch.setattr(pallas_lbm, "_INTERPRET", True)
+from lbmdem.config import DiskSpec, SimConfig
+from lbmdem.ops import lbm
+from lbmdem.simulation import Simulation
 
 
 def test_config_validation():
@@ -33,8 +25,8 @@ def test_config_validation():
     with pytest.raises(ValueError, match="u_inlet"):
         SimConfig(nx=32, ny=16, bc_west="inlet", bc_east="outlet",
                   u_inlet=0.7)
-    # bf16 f-storage composes with open boundaries (the Zou/He closures
-    # take the storage shift directly - lbm.zou_he_inlet)
+    # bf16 f-storage composes with open boundaries (the closures run on
+    # the dequantized f32 populations)
     SimConfig(nx=128, ny=16, bc_west="inlet", bc_east="outlet",
               u_inlet=0.05, f_storage="bfloat16")
     # mobile disks with open boundaries are supported (outflow culling)
@@ -58,86 +50,6 @@ def test_uniform_plug_flow_is_fixed_point():
     for _ in range(5):
         f = lbm.step_pure_fluid(f, cfg)
     np.testing.assert_allclose(np.asarray(f), np.asarray(f0), atol=1e-15)
-
-
-def test_zou_he_shift_identity():
-    """The shifted-storage form of the closures is algebraically exact:
-    running zou_he on g_i = f_i - w_i*sigma with shift=sigma equals the
-    physical result minus the output populations' shifts. Checked in
-    f64 to the identity's roundoff (the +sigma density-sum term and the
-    pairwise weight cancellations, see lbm.zou_he_inlet docstring)."""
-    rng = np.random.default_rng(11)
-    f = lattice.W[:, None] * (1.0 + 0.05 * rng.standard_normal((9, 64)))
-    sigma = 1.7
-    g = f - sigma * lattice.W[:, None]
-    uw = 0.04 * rng.standard_normal(64)
-    n_phys = lbm.zou_he_inlet(tuple(f), uw)
-    n_shft = lbm.zou_he_inlet(tuple(g), uw, shift=sigma)
-    for i, (p, s) in zip((1, 5, 8), zip(n_phys, n_shft)):
-        np.testing.assert_allclose(np.asarray(s) + sigma * lattice.W[i],
-                                   np.asarray(p), rtol=1e-13)
-    m_phys = lbm.zou_he_outlet(tuple(f), 1.05)
-    m_shft = lbm.zou_he_outlet(tuple(g), 1.05, shift=sigma)
-    for i, (p, s) in zip((3, 7, 6), zip(m_phys, m_shft)):
-        np.testing.assert_allclose(np.asarray(s) + sigma * lattice.W[i],
-                                   np.asarray(p), rtol=1e-13)
-
-
-@pytest.mark.slow  # r5 lane trim: the bf16 x Zou/He composition keeps a
-# quick rep in test_sharding.py::test_pallas_sharded_fluid_bf16_openbc,
-# and plain openbc / plain bf16 kernel parity each stay quick
-def test_openbc_bf16_kernel_parity(_interpret):
-    """Zou/He + shifted-bf16 f storage on the fused kernel vs the
-    quantized oracle (dequantize -> f32 oracle step -> requantize).
-    Tolerance is ~1 bf16 ulp of the residual scale, as in the closed-box
-    bf16 parity tests: summation order differs between the paths."""
-    cfg = SimConfig(nx=128, ny=16, tau=0.8, dtype="float32",
-                    f_storage="bfloat16", bc_west="inlet",
-                    bc_east="outlet", u_inlet=0.05,
-                    inlet_profile="poiseuille")
-    rng = np.random.default_rng(7)
-    base = lattice.W[:, None, None].astype(np.float32)
-    f = jnp.asarray(
-        base * (1.0 + 0.02 * rng.standard_normal((9, 16, 128))
-                .astype(np.float32))
-    )
-    ref = got = lbm.to_storage(f, cfg)
-    for _ in range(2):
-        ref = lbm.to_storage(
-            lbm.step_pure_fluid(lbm.from_storage(ref, cfg), cfg), cfg
-        )
-        got = pallas_lbm.fused_step_fluid(got, cfg)
-    assert got.dtype == jnp.bfloat16
-    np.testing.assert_allclose(np.asarray(got, np.float32),
-                               np.asarray(ref, np.float32), atol=3e-4)
-
-
-@pytest.mark.slow  # interpret-mode coupled build dominates
-def test_openbc_coupled_bf16_matches_oracle(_interpret):
-    """Open boundaries + a mobile disk + bf16 f storage end-to-end:
-    Simulation(use_pallas) vs the oracle path (same per-step storage
-    quantization), including the boundary-column solid masking and the
-    outflow-culling wiring on the bf16 kernel path."""
-    from lbmdem_tpu.simulation import make_step_fn
-
-    cfg = SimConfig(nx=256, ny=32, tau=0.7, dtype="float32", max_disks=1,
-                    window=13, f_storage="bfloat16", bc_west="inlet",
-                    bc_east="outlet", u_inlet=0.05,
-                    inlet_profile="poiseuille", n_sub=2)
-    disks = [DiskSpec(48.0, 16.0, 4.0, vx=0.02)]
-    ref = Simulation(cfg, disks)
-    pal = Simulation(cfg, disks, use_pallas=True)
-    assert ref.state.f.dtype == jnp.bfloat16
-    step_r = jax.jit(make_step_fn(ref.cfg, ref.grid, False))
-    step_p = jax.jit(make_step_fn(pal.cfg, pal.grid, True))
-    sr, sp = ref.state, pal.state
-    for _ in range(3):
-        sr = step_r(sr)
-        sp = step_p(sp)
-    np.testing.assert_allclose(np.asarray(sr.f, np.float32),
-                               np.asarray(sp.f, np.float32), atol=3e-4)
-    np.testing.assert_allclose(np.asarray(sr.disks.x), np.asarray(sp.disks.x),
-                               rtol=1e-5, atol=1e-6)
 
 
 def test_channel_inflow_outflow_poiseuille():
@@ -175,64 +87,10 @@ def test_channel_inflow_outflow_poiseuille():
     np.testing.assert_allclose(rho[:, -1].mean(), 1.0, atol=1e-6)
 
 
-_PARITY_CFGS = [
-    ("poiseuille", {}),
-    pytest.param("uniform", dict(collision="trt"), marks=pytest.mark.slow),
-    pytest.param("uniform", dict(bc_south="periodic", bc_north="periodic"),
-                 marks=pytest.mark.slow),
-]
-
-
-@pytest.mark.parametrize("prof,extra", _PARITY_CFGS)
-def test_openbc_kernel_parity(_interpret, prof, extra):
-    """Fused kernel Zou/He fixup vs the oracle, random state."""
-    cfg = SimConfig(nx=128, ny=16, tau=0.8, dtype="float32",
-                    bc_west="inlet", bc_east="outlet", u_inlet=0.05,
-                    inlet_profile=prof, **extra)
-    rng = np.random.default_rng(3)
-    base = lattice.W[:, None, None].astype(np.float32)
-    f = jnp.asarray(
-        base * (1.0 + 0.02 * rng.standard_normal((9, 16, 128))
-                .astype(np.float32))
-    )
-    ref, got = f, f
-    for _ in range(2):
-        ref = lbm.step_pure_fluid(ref, cfg)
-        got = pallas_lbm.fused_step_fluid(got, cfg)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-6, atol=1e-7)
-
-
-def test_openbc_coupled_kernel_parity(_interpret):
-    """Coupled kernel with a fixed obstacle + open boundaries."""
-    cfg = SimConfig(nx=128, ny=32, tau=0.7, dtype="float32", max_disks=1,
-                    window=13, bc_west="inlet", bc_east="outlet",
-                    u_inlet=0.05, inlet_profile="poiseuille")
-    rng = np.random.default_rng(5)
-    base = lattice.W[:, None, None].astype(np.float32)
-    f = jnp.asarray(
-        base * (1.0 + 0.02 * rng.standard_normal((9, 32, 128))
-                .astype(np.float32))
-    )
-    xp = jnp.asarray([[48.0, 16.0]], jnp.float32)
-    vp = jnp.zeros((1, 2), jnp.float32)
-    om = jnp.zeros((1,), jnp.float32)
-    rr = jnp.asarray([5.0], jnp.float32)
-    act = jnp.asarray([True])
-    eps, usx, usy = imb.stamp_solid_fraction(xp, vp, om, rr, act, cfg)
-    fpost, _, _ = imb.collide_imb(f, eps, usx, usy, cfg)
-    fref = lbm.apply_open_boundaries(
-        lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg), cfg
-    )
-    fgot, _, _ = pallas_lbm.fused_step_imb(f, eps, usx, usy, cfg)
-    np.testing.assert_allclose(np.asarray(fgot), np.asarray(fref),
-                               rtol=1e-6, atol=1e-7)
-
-
 def test_cull_open_boundaries_unit():
     """dem.cull_open_boundaries: straddling disks stay active, fully-out
     mobile disks deactivate and park, fixed disks are exempt."""
-    from lbmdem_tpu.ops import dem
+    from lbmdem.ops import dem
 
     cfg = SimConfig(nx=64, ny=32, bc_west="inlet", bc_east="outlet",
                     u_inlet=0.05, max_disks=4, dtype="float64")

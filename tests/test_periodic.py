@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbmdem_tpu.config import DiskSpec, SimConfig, window_for_radius
-from lbmdem_tpu.ops import dem, imb
-from lbmdem_tpu.ops.dem import DemGrid, DiskState
-from lbmdem_tpu.simulation import Simulation, make_step_fn
+from lbmdem.config import DiskSpec, SimConfig, window_for_radius
+from lbmdem.ops import dem, imb
+from lbmdem.ops.dem import DemGrid, DiskState
+from lbmdem.simulation import Simulation, make_step_fn
 
 
 def _disk_state(cfg, rows, dtype=jnp.float64):
@@ -141,59 +141,10 @@ def test_oracle_trajectory_translation_invariant():
     assert x_final < 10.0  # crossed the seam and wrapped to the west
 
 
-@pytest.mark.slow  # ~86 s: interpret fused coupled build dominates;
-# the quick lane keeps periodic coverage via the XLA-path invariance
-# tests + the fused slab periodic parity (test_pallas_dem)
-def test_pallas_periodic_parity_short():
-    """Fused-kernel coupled path (per-step ghost selection) vs the
-    oracle across the seam, interpret mode."""
-    cfg = _pcfg(nx=128, ny=32, r=4.0, dtype="float32", tile_cap=32,
-                window=window_for_radius(4.0), max_disks=2, n_sub=4)
-    disks = [DiskSpec(126.5, 16.2, 4.0, vx=0.03),
-             DiskSpec(60.0, 14.0, 3.0)]
-    ref = Simulation(cfg, disks)
-    pal = Simulation(cfg, disks, use_pallas=True)
-    step_r = jax.jit(make_step_fn(ref.cfg, ref.grid, False))
-    step_p = jax.jit(make_step_fn(pal.cfg, pal.grid, True))
-    sr, sp = ref.state, pal.state
-    for _ in range(2):
-        sr = step_r(sr)
-        sp = step_p(sp)
-    np.testing.assert_allclose(np.asarray(sr.f), np.asarray(sp.f),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(sr.disks.x), np.asarray(sp.disks.x),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(sr.disks.v), np.asarray(sp.disks.v),
-                               rtol=1e-4, atol=1e-7)
-
-
-@pytest.mark.slow  # interpret-mode kernel loops; exercises the cadence
-def test_pallas_periodic_cadence_crossing():
-    """Verlet-cadence driver (run()) with a disk crossing the seam
-    mid-cadence: ghosts selected at rebuild points must stay valid and
-    the trajectory must match the oracle."""
-    cfg = _pcfg(nx=128, ny=32, r=4.0, dtype="float32", tile_cap=32,
-                window=window_for_radius(4.0), max_disks=2, n_sub=4,
-                out_interval=100)
-    disks = [DiskSpec(126.9, 16.2, 4.0, vx=0.05),
-             DiskSpec(5.0, 15.0, 3.0, vx=-0.02)]
-    ref = Simulation(cfg, disks)
-    pal = Simulation(cfg, disks, use_pallas=True)
-    ref.run(12)  # > BIN_CADENCE: one rebuild + remainder
-    pal.run(12)
-    assert int(pal.state.overflow) == 0
-    np.testing.assert_allclose(np.asarray(ref.state.disks.x),
-                               np.asarray(pal.state.disks.x),
-                               rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(ref.state.f),
-                               np.asarray(pal.state.f),
-                               rtol=1e-4, atol=1e-5)
-
-
 def test_sharded_periodic_coupled_matches():
     """Sharded XLA path with a disk straddling the periodic seam (which
     is also the x shard boundary of the ('y','x') mesh)."""
-    from lbmdem_tpu.parallel import make_mesh, make_sharded_step, shard_state
+    from lbmdem.parallel import make_mesh, make_sharded_step, shard_state
 
     devs = jax.devices()[:4]
     if len(devs) < 4:
@@ -223,65 +174,3 @@ def test_small_periodic_domain_rejected():
     cfg = _pcfg(nx=32, r=4.0, window=window_for_radius(4.0))
     with pytest.raises(ValueError, match="too small"):
         Simulation(cfg, [DiskSpec(16.0, 24.0, 4.0)])
-
-
-def test_slab_dem_wrap_gating():
-    """Periodic axes run the slab kernel now (minimum-image pair law +
-    wrapped adjacency); the one remaining gate is a wrapped SUBLANE
-    axis with < 8 cell rows (the 8-row ghost copies need whole real
-    rows). Lane-axis wrap has no cell-count gate beyond DemGrid's
-    >= 3."""
-    from lbmdem_tpu.ops import pallas_dem
-
-    cfg = _pcfg()
-    grid = DemGrid.build(cfg, 2.5)
-    assert grid.wrap_lx == cfg.nx and grid.wrap_ly == 0.0
-    assert pallas_dem.slab_supported(grid, "y")  # wrap on the lane axis
-    assert pallas_dem.slab_supported(grid, "x")  # sublanes: ncx = 10 >= 8
-    small = DemGrid.build(_pcfg(nx=40), 2.5)  # 6 wrapped x cells
-    assert not pallas_dem.slab_supported(small, "x")  # sublane wrap < 8
-    assert pallas_dem.slab_supported(small, "y")  # lane wrap is fine
-    wall_cfg = _pcfg(bc_west="wall", bc_east="wall")
-    assert pallas_dem.slab_supported(DemGrid.build(wall_cfg, 2.5), "y")
-
-
-@pytest.mark.parametrize("meshdims", [
-    pytest.param((4, 1), marks=pytest.mark.slow),  # interpret-mode fused
-    pytest.param((2, 2), marks=pytest.mark.slow),  # coupled builds ~90 s
-])
-def test_sharded_pallas_periodic_coupled_matches(meshdims):
-    """Periodic DEM through the sharded fused kernels: ghosts selected
-    at global coords land in the local canvas apron; a disk straddling
-    the periodic x seam (also the x shard boundary on the 2x2 mesh)
-    must match the single-chip fused path."""
-    from lbmdem_tpu.parallel import make_mesh, make_sharded_step, shard_state
-
-    ysz, xsz = meshdims
-    devs = jax.devices()[: ysz * xsz]
-    if len(devs) < ysz * xsz:
-        pytest.skip(f"need {ysz * xsz} devices")
-    mesh = make_mesh(devs, (ysz, xsz))
-    nx = 128 * xsz
-    cfg = _pcfg(nx=nx, ny=128, dtype="float32", tile_cap=32, g_py=-5e-5)
-    disks = [
-        DiskSpec(nx - 1.0, 64.0, 2.5, vx=0.02),  # straddles the x seam
-        DiskSpec(3.0, 63.5, 2.5),                # reaches the seam from east
-        DiskSpec(40.0, 96.0, 2.0),               # interior
-    ]
-    sim = Simulation(cfg, disks, use_pallas=True)
-    step_ref = jax.jit(make_step_fn(sim.cfg, sim.grid, True))
-    step_sh = jax.jit(
-        make_sharded_step(sim.cfg, sim.grid, mesh, use_pallas=True)
-    )
-    s_ref = sim.state
-    s_sh = shard_state(sim.state, mesh)
-    for _ in range(2):
-        s_ref = step_ref(s_ref)
-        s_sh = step_sh(s_sh)
-    np.testing.assert_allclose(np.asarray(s_ref.f), np.asarray(s_sh.f),
-                               rtol=0, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(s_ref.disks.x),
-                               np.asarray(s_sh.disks.x), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(s_ref.disks.v),
-                               np.asarray(s_sh.disks.v), rtol=0, atol=1e-7)
-    assert int(s_sh.overflow) == 0

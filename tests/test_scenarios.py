@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbmdem_tpu.models import SCENARIOS, make_scenario
-from lbmdem_tpu.simulation import Simulation, make_step_fn
+from lbmdem.models import SCENARIOS, make_scenario
+from lbmdem.simulation import Simulation, make_step_fn
 
 
 SMALL = {
@@ -58,7 +58,7 @@ def test_column_collapse_runout():
     x0 = np.asarray(s.disks.x)[np.asarray(s.disks.active)]
     front0 = x0[:, 0].max()
     for _ in range(5):  # ~1250 steps: the front is moving well before
-        s = chunk(s)    # arrest (the full study is slow-marked + TPU)
+        s = chunk(s)    # arrest (the full study is slow-marked + GPU)
     x1 = np.asarray(s.disks.x)[np.asarray(s.disks.active)]
     front1 = x1[:, 0].max()
     assert front1 > front0 + 1.0, f"no runout: {front0} -> {front1}"
@@ -99,13 +99,13 @@ def test_column_collapse_runout_scaling():
     the same width runs out measurably farther, both deposits arrest,
     and the tall column actually collapses (final height well under
     H0). tools/collapse_study.py runs the full 4-aspect power-law study
-    on the TPU (literature: dL/L0 ~ lambda a^alpha, alpha ~1 squat /
+    on the GPU (literature: dL/L0 ~ lambda a^alpha, alpha ~1 squat /
     ~0.7 tall; Lube 2005, Lajeunesse 2005; immersed: Rondon 2011)."""
     from tools.collapse_study import check_scaling, run_study
 
     results = run_study(nx=256, ny=160, r=3.0, L0=40.0,
                         aspects=(0.75, 2.5), g=2e-4, chunk=1000,
-                        max_steps=8000, use_pallas=False,
+                        max_steps=8000,
                         dtype="float64", n_sub=5, verbose=False)
     check_scaling(results, require_settled=False)
     # the squat column must also have stopped spreading (settled flag

@@ -8,10 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbmdem_tpu.config import DiskSpec, SimConfig
-from lbmdem_tpu.ops import lbm
-from lbmdem_tpu.parallel import make_mesh, make_sharded_step, shard_state
-from lbmdem_tpu.simulation import Simulation, make_step_fn
+from lbmdem.config import DiskSpec, SimConfig
+from lbmdem.parallel import make_mesh, make_sharded_step, shard_state
+from lbmdem.simulation import Simulation, make_step_fn
 
 
 def _mesh(ysz, xsz):
@@ -126,557 +125,81 @@ def test_sharded_mass_conservation():
     assert abs(float(jnp.sum(s.f)) - m0) < 1e-10 * m0
 
 
-def _run_both_pallas(cfg, disks, mesh, nsteps):
-    """Sharded fused-kernel path vs unsharded fused-kernel path."""
-    sim = Simulation(cfg, disks, use_pallas=True)
-    step_ref = jax.jit(make_step_fn(sim.cfg, sim.grid, True))
-    step_sh = jax.jit(make_sharded_step(sim.cfg, sim.grid, mesh, use_pallas=True))
-    s_ref = sim.state
-    s_sh = shard_state(sim.state, mesh)
-    for _ in range(nsteps):
-        s_ref = step_ref(s_ref)
-        s_sh = step_sh(s_sh)
-    return s_ref, s_sh
+# Mesh x boundary/physics cases on the sharded step: every case must
+# reproduce the single-device step. f64 on the CPU: the operation order
+# is the same on both sides, so walls, TRT, LES and the coupled paths
+# agree to roundoff (1e-13 leaves room for FMA-contraction differences
+# between the two program shapes, as in the open-boundary tests above).
+_SHARDED_CASES = [
+    ((2, 2), dict(collision="trt", gx=1e-5, bc_west="wall",
+                  bc_east="wall"), False),
+    ((4, 1), dict(smagorinsky=0.16, gx=2e-5), False),
+    ((1, 4), dict(bc_west="wall", bc_east="wall", uw_north=0.05,
+                  uw_south=-0.02, gy=-1e-5), False),
+    ((2, 2), dict(bc_south="periodic", bc_north="periodic", gx=1e-5,
+                  gy=5e-6), False),
+    ((4, 1), dict(bc_west="inlet", bc_east="outlet", u_inlet=0.05,
+                  bc_south="periodic", bc_north="periodic"), False),
+    ((2, 2), dict(eps_method="ramp"), True),
+    ((4, 1), dict(kt=0.4, gamma_t=0.2, mu=0.3), True),
+    ((2, 2), dict(collision="trt", eps_method="exact"), True),
+]
 
 
-@pytest.mark.parametrize("meshdims", [
-    (4, 1), (2, 2),  # (2,4) re-covers the 2D path: slow-marked
-    pytest.param((2, 4), marks=pytest.mark.slow)])
-def test_pallas_sharded_fluid_matches(meshdims):
-    """Fused-kernel path on 1D and 2D meshes == single-device fused path."""
+@pytest.mark.parametrize("meshdims,extra,coupled", _SHARDED_CASES)
+def test_sharded_cases_match(meshdims, extra, coupled):
     mesh = _mesh(*meshdims)
-    cfg = SimConfig(nx=512, ny=64, tau=0.8, gx=1e-5, dtype="float32")
-    sref, ssh = _run_both_pallas(cfg, [], mesh, 4)
+    kw = dict(nx=32, ny=32, tau=0.8, dtype="float64")
+    disks = []
+    if coupled:
+        kw.update(g_py=-1e-4, buoyancy=True, rho_s=2.0, kn=0.5,
+                  gamma_n=0.5, n_sub=4, bc_west="wall", bc_east="wall")
+        disks = [
+            DiskSpec(16.0, 16.0, 3.0),           # straddles the seams
+            DiskSpec(16.2, 21.9, 3.0),           # overlapping pair
+            DiskSpec(7.5, 8.2, 2.5, vx=0.01, omega=0.003),
+        ]
+    kw.update(extra)
+    sref, ssh = _run_both(SimConfig(**kw), disks, mesh, 3)
     np.testing.assert_allclose(np.asarray(sref.f), np.asarray(ssh.f),
-                               rtol=0, atol=1e-7)
-
-
-@pytest.mark.parametrize("meshdims", [
-    pytest.param((4, 1), marks=pytest.mark.slow),  # 1D-mesh
-    # lowering keeps its quick rep in test_pallas_sharded_fluid
-    # _matches[(4,1)]; derived families run the (2,2) superset
-    # quick (r5 lane trim)
-    (2, 2)])
-def test_pallas_sharded_fluid_walls_matches(meshdims):
-    mesh = _mesh(*meshdims)
-    cfg = SimConfig(nx=512, ny=64, tau=0.7, gy=-1e-5, dtype="float32",
-                    bc_west="wall", bc_east="wall")
-    sref, ssh = _run_both_pallas(cfg, [], mesh, 4)
-    np.testing.assert_allclose(np.asarray(sref.f), np.asarray(ssh.f),
-                               rtol=0, atol=1e-7)
-
-
-@pytest.mark.parametrize("meshdims", [
-    pytest.param((4, 1), marks=pytest.mark.slow),  # 1D-mesh
-    # lowering keeps its quick rep in test_pallas_sharded_fluid
-    # _matches[(4,1)]; derived families run the (2,2) superset
-    # quick (r5 lane trim)
-    (2, 2)])
-def test_pallas_sharded_cavity_matches(meshdims):
-    """Moving walls via the external fixups, incl. the corner cells
-    where the x-wall rule must win (oracle ordering)."""
-    mesh = _mesh(*meshdims)
-    cfg = SimConfig(nx=512, ny=64, tau=0.7, dtype="float32",
-                    bc_west="wall", bc_east="wall", uw_north=0.08,
-                    uw_south=-0.03, uw_east=0.02)
-    sref, ssh = _run_both_pallas(cfg, [], mesh, 4)
-    np.testing.assert_allclose(np.asarray(sref.f), np.asarray(ssh.f),
-                               rtol=0, atol=1e-7)
-
-
-@pytest.mark.parametrize("meshdims", [
-    pytest.param((4, 1), marks=pytest.mark.slow),  # 1D-mesh
-    # lowering keeps its quick rep in test_pallas_sharded_fluid
-    # _matches[(4,1)]; derived families run the (2,2) superset
-    # quick (r5 lane trim)
-    (2, 2)])
-def test_pallas_sharded_openbc_matches(meshdims):
-    """Zou/He inlet/outlet through the fused kernels on a mesh: the
-    kernel skips its in-kernel closure in prehalo mode and the edge
-    shards run the shared external fixup instead. Compared against the
-    single-chip fused path with a small tolerance: the in-kernel (ref)
-    inlet profile is evaluated in traced f32 while the sharded fixup
-    slices the host-f64 profile - ~1 f32 ulp per inlet row."""
-    mesh = _mesh(*meshdims)
-    cfg = SimConfig(nx=512, ny=64, tau=0.7, dtype="float32",
-                    bc_west="inlet", bc_east="outlet", u_inlet=0.06,
-                    inlet_profile="poiseuille")
-    sref, ssh = _run_both_pallas(cfg, [], mesh, 4)
-    np.testing.assert_allclose(np.asarray(sref.f), np.asarray(ssh.f),
-                               rtol=0, atol=1e-6)
-
-
-@pytest.mark.slow  # interpret-mode fused coupled build dominates (~90 s)
-def test_pallas_sharded_openbc_coupled_matches():
-    """Open boundaries + disks (one fixed obstacle, one mobile) through
-    the sharded fused kernels: canvas-column solid masking on the edge
-    shards, external Zou/He fixup, hydro psum, outflow culling wiring."""
-    mesh = _mesh(2, 2)
-    cfg = SimConfig(nx=256, ny=128, tau=0.7, dtype="float32", max_disks=2,
-                    window=9, bc_west="inlet", bc_east="outlet",
-                    u_inlet=0.06, inlet_profile="poiseuille")
-    disks = [
-        DiskSpec(128.0, 64.0, 3.0, fixed=True),  # straddles the mesh center
-        DiskSpec(64.0, 32.0, 2.5, vx=0.05),      # mobile, carried along
-    ]
-    sref, ssh = _run_both_pallas(cfg, disks, mesh, 2)
-    np.testing.assert_allclose(np.asarray(sref.f), np.asarray(ssh.f),
-                               rtol=0, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(sref.disks.x),
-                               np.asarray(ssh.disks.x), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(sref.disks.v),
-                               np.asarray(ssh.disks.v), rtol=0, atol=1e-7)
-
-
-@pytest.mark.parametrize("meshdims", [
-    pytest.param((4, 1), marks=pytest.mark.slow),  # 1D-mesh
-    # lowering keeps its quick rep in test_pallas_sharded_fluid
-    # _matches[(4,1)]; derived families run the (2,2) superset
-    # quick (r5 lane trim)
-    (2, 2)])
-def test_pallas_sharded_fluid_bf16_matches(meshdims):
-    """Shifted-bf16 f storage on a mesh: the prehalo ppermute exchange
-    runs at the bf16 16-row granule and the kernels shift in-kernel.
-    Edge rows go through the storage-aware oracle fixup (one bf16
-    rounding either way), so parity vs the single-chip fused path is
-    ulp-tight in the shifted-g space."""
-    mesh = _mesh(*meshdims)
-    cfg = SimConfig(nx=512, ny=64, tau=0.7, gy=-1e-5, dtype="float32",
-                    f_storage="bfloat16", bc_west="wall", bc_east="wall",
-                    uw_north=0.03)
-    sref, ssh = _run_both_pallas(cfg, [], mesh, 4)
-    assert ssh.f.dtype == jnp.bfloat16
-    # edge rows round through the storage-aware oracle fixup, so the
-    # sharded and single-chip values can land one bf16 ulp apart
-    np.testing.assert_allclose(np.asarray(sref.f, np.float32),
-                               np.asarray(ssh.f, np.float32),
-                               rtol=1e-2, atol=1e-6)
-
-
-@pytest.mark.parametrize("meshdims", [
-    (4, 1),
-    pytest.param((2, 2), marks=pytest.mark.slow),
-])
-def test_pallas_sharded_fluid_bf16_openbc(meshdims):
-    """Zou/He open boundaries + shifted-bf16 storage on a mesh: the
-    storage-aware external edge fixup runs the closures in f32 with the
-    +rho0 density-sum shift and rounds back to bf16. vs single-chip:
-    the in-kernel (ref) closure reads pre-rounding f32 streamed values
-    and its inlet profile is traced f32 (the fixup slices the host-f64
-    profile), so inlet/outlet columns can differ by ~1 bf16 ulp of the
-    residual scale."""
-    mesh = _mesh(*meshdims)
-    cfg = SimConfig(nx=512, ny=64, tau=0.7, dtype="float32",
-                    f_storage="bfloat16", bc_west="inlet",
-                    bc_east="outlet", u_inlet=0.06,
-                    inlet_profile="poiseuille")
-    sref, ssh = _run_both_pallas(cfg, [], mesh, 4)
-    assert ssh.f.dtype == jnp.bfloat16
-    np.testing.assert_allclose(np.asarray(sref.f, np.float32),
-                               np.asarray(ssh.f, np.float32),
-                               rtol=1e-2, atol=5e-4)
-
-
-@pytest.mark.slow  # ~34 s; bf16 fluid parity stays quick via
-# test_pallas_sharded_fluid_bf16_matches
-def test_pallas_sharded_fluid_bf16_temporal():
-    """bf16 + temporal blocking on a mesh: one 16-row halo exchange
-    feeds k=4 inner f32 steps; quantization points match single-chip."""
-    from lbmdem_tpu.simulation import TEMPORAL_K
-
-    mesh = _mesh(4, 1)
-    cfg = SimConfig(nx=512, ny=64, tau=0.8, gy=-1e-5, dtype="float32",
-                    f_storage="bfloat16", bc_west="wall", bc_east="wall",
-                    out_interval=100)
-    ref = Simulation(cfg, use_pallas=True)
-    sh = Simulation(cfg, use_pallas=True, mesh=mesh)
-    n = 2 * TEMPORAL_K
-    ref.run(n)
-    sh.run(n)
-    assert int(sh.state.step) == n
-    np.testing.assert_allclose(np.asarray(ref.state.f, np.float32),
-                               np.asarray(sh.state.f, np.float32),
-                               rtol=0, atol=2e-6)
+                               rtol=0, atol=1e-13)
+    if coupled:
+        assert int(ssh.overflow) == 0
+        for name in ("x", "v", "omega", "ct_xi"):
+            np.testing.assert_allclose(
+                np.asarray(getattr(sref.disks, name)),
+                np.asarray(getattr(ssh.disks, name)), rtol=0, atol=1e-13)
+        np.testing.assert_array_equal(np.asarray(sref.disks.ct_j),
+                                      np.asarray(ssh.disks.ct_j))
+        if extra.get("kt"):
+            assert np.abs(np.asarray(sref.disks.ct_xi)).max() > 0
 
 
 def test_bf16_mesh_rejections():
-    """bf16 on a mesh: Pallas paths only, at the 16-row shard granule."""
+    """bf16 storage is single-device only: the sharded step consumes raw
+    f32 f, and shifted-bf16 g would silently collide to NaN (rho =
+    sum(g) = 0 at rest). Both the driver and the step builder refuse."""
     mesh = _mesh(2, 2)
-    cfg = SimConfig(nx=512, ny=64, dtype="float32", f_storage="bfloat16",
+    cfg = SimConfig(nx=64, ny=32, dtype="float32", f_storage="bfloat16",
                     bc_west="wall", bc_east="wall")
     with pytest.raises(ValueError, match="raw f32"):
-        Simulation(cfg, mesh=mesh)  # XLA sharded path
-    # per-shard ny must hit the 16-row bf16 granule
-    mesh8 = _mesh(8, 1)
-    cfg8 = SimConfig(nx=512, ny=64, dtype="float32", f_storage="bfloat16",
-                     bc_west="wall", bc_east="wall")
-    with pytest.raises(ValueError, match="16"):
-        Simulation(cfg8, use_pallas=True, mesh=mesh8)
-
-
-@pytest.mark.slow  # interpret-mode fused coupled build dominates (~90 s)
-def test_pallas_sharded_coupled_bf16_matches():
-    """Shifted-bf16 f storage through the sharded fused coupled path:
-    the 16-row prehalo exchange feeds the fused IMB+reduce kernel, and
-    the edge fixups round-trip their 1-row slices through the
-    storage-aware oracle collide (from_storage -> collide_imb ->
-    to_storage). vs single-chip bf16: the fixup's +-w*rho0 f32
-    round-trip can differ from the kernel's fused shift algebra by an
-    f32 ulp before the shared bf16 rounding, so parity is
-    tolerance-level on the edge rows and ulp-tight elsewhere."""
-    mesh = _mesh(4, 1)
-    cfg = SimConfig(nx=128, ny=128, tau=0.8, dtype="float32",
-                    f_storage="bfloat16", g_py=-1e-4, buoyancy=True,
-                    rho_s=2.0, kn=0.5, gamma_n=0.5, n_sub=5,
-                    bc_west="wall", bc_east="wall")
-    disks = [
-        DiskSpec(64.0, 64.0, 3.0),           # straddles the y boundary
-        DiskSpec(32.2, 96.1, 2.5),           # interior
-        DiskSpec(90.0, 31.9, 2.0, vx=0.01),  # near a boundary
-    ]
-    sref, ssh = _run_both_pallas(cfg, disks, mesh, 2)
-    assert ssh.f.dtype == jnp.bfloat16
-    np.testing.assert_allclose(np.asarray(sref.f, np.float32),
-                               np.asarray(ssh.f, np.float32),
-                               rtol=1e-2, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(sref.disks.x),
-                               np.asarray(ssh.disks.x), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(sref.disks.v),
-                               np.asarray(ssh.disks.v), rtol=0, atol=1e-6)
-
-
-@pytest.mark.parametrize("meshdims", [
-    pytest.param((4, 1), marks=pytest.mark.slow),  # ~90 s: the sharded
-    # interpret-mode fused build dominates regardless of size; the quick
-    # lane keeps sharded-coupled coverage via the XLA path
-    # (test_coupled_sharded_matches) + single-chip fused coupled parity
-    pytest.param((2, 2), marks=pytest.mark.slow),  # ~85 s interpret-mode
-])
-def test_pallas_sharded_coupled_matches(meshdims):
-    """Disks straddling shard boundaries through the fused kernels.
-    The quick-lane (4,1) case runs the minimum kernel-legal width
-    (w=128) and 2 steps - interpret-mode stamp/reduce loops cost ~40 s
-    vs ~120 s at 256x128x3steps."""
-    mesh = _mesh(*meshdims)
-    nx = 128 * mesh.shape["x"]
-    cx = nx / 2
-    cfg = SimConfig(nx=nx, ny=128, tau=0.8, dtype="float32", g_py=-1e-4,
-                    buoyancy=True, rho_s=2.0, kn=0.5, gamma_n=0.5, n_sub=5,
-                    bc_west="wall", bc_east="wall")
-    disks = [
-        DiskSpec(cx, 64.0, 3.0),          # straddles the mesh center
-        DiskSpec(32.2, 96.1, 2.5),        # interior
-        DiskSpec(90.0, 31.9, 2.0, vx=0.01),  # near a boundary
-    ]
-    sref, ssh = _run_both_pallas(cfg, disks, mesh, 2)
-    np.testing.assert_allclose(np.asarray(sref.f), np.asarray(ssh.f),
-                               rtol=0, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(sref.disks.x), np.asarray(ssh.disks.x),
-                               rtol=0, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(sref.disks.v), np.asarray(ssh.disks.v),
-                               rtol=0, atol=1e-7)
-
-
-@pytest.mark.slow  # interpret-mode fused coupled at h=256 per shard
-def test_pallas_sharded_coupled_256row_tiles():
-    """Shard-local height 256: the coupled chain (kernel tile_dims
-    coupled=True, stamp tile_dims, canvas_pads) all pick 256-row tiles
-    (the r4 per-path flavor) - pins the canvas/stamp/kernel row
-    alignment the small-grid parametrizations never reach (they fall
-    back to <=128)."""
-    from lbmdem_tpu.ops import pallas_lbm, pallas_stamp
-    from lbmdem_tpu.parallel._pallas_step import canvas_pads
-
-    mesh = _mesh(2, 1)
-    cfg = SimConfig(nx=128, ny=512, tau=0.8, dtype="float32", g_py=-1e-4,
-                    buoyancy=True, rho_s=2.0, kn=0.5, gamma_n=0.5, n_sub=5,
-                    bc_west="wall", bc_east="wall")
-    h = cfg.ny // mesh.shape["y"]
-    assert pallas_lbm.tile_dims(cfg.replace(ny=h), wide=True,
-                                coupled=True)[0] == 256
-    assert canvas_pads(h, False)[0] == 256
-    assert pallas_stamp.tile_dims(cfg.replace(ny=h + 2 * 256))[0] == 256
-    disks = [
-        DiskSpec(64.0, 256.0, 3.0),           # straddles the shard seam
-        DiskSpec(32.2, 96.1, 2.5),            # interior, lower shard
-        DiskSpec(90.0, 400.0, 2.0, vx=0.01),  # interior, upper shard
-    ]
-    sref, ssh = _run_both_pallas(cfg, disks, mesh, 2)
-    np.testing.assert_allclose(np.asarray(sref.f), np.asarray(ssh.f),
-                               rtol=0, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(sref.disks.x),
-                               np.asarray(ssh.disks.x), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(sref.disks.v),
-                               np.asarray(ssh.disks.v), rtol=0, atol=1e-7)
-
-
-@pytest.mark.slow  # interpret-mode fused window kernel inside shard_map
-@pytest.mark.parametrize("meshdims", [(2, 1), (2, 2)])
-def test_pallas_sharded_coupling_k_matches_single_chip(meshdims):
-    """cfg.coupling_k on a mesh: the sharded cadence chunk runs the
-    k-step window kernel inside shard_map (ONE ppermute exchange + ONE
-    canvas stamp per window, per-inner-step forces psum'd as a stacked
-    tensor, global-edge BB in-kernel). Trajectories must match the
-    single-chip windowed chunk - the same frozen-field algorithm, so
-    only binning/psum reduction-order noise separates them."""
-    mesh = _mesh(*meshdims)
-    cfg = SimConfig(nx=256, ny=128, tau=0.8, dtype="float32", g_py=-1e-4,
-                    buoyancy=True, rho_s=2.0, kn=0.5, gamma_n=0.5, n_sub=5,
-                    bc_west="wall", bc_east="wall", coupling_k=4)
-    disks = [
-        DiskSpec(64.0, 64.0, 3.0),            # straddles the y shard seam
-        DiskSpec(130.2, 40.1, 2.5, vx=0.01),  # near the 2D x seam
-    ]
-    n = 8  # one cadence block = two k=4 windows
-    sim1 = Simulation(cfg, disks, use_pallas=True)
-    sim1.state = sim1._chunk_fn(n)(sim1.state)
-    simm = Simulation(cfg, disks, use_pallas=True, mesh=mesh)
-    simm.state = simm._chunk_fn(n)(simm.state)
-    assert int(simm.state.step) == n
-    assert int(simm.state.overflow) == 0
-    np.testing.assert_allclose(np.asarray(sim1.state.f),
-                               np.asarray(simm.state.f), rtol=0, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(sim1.state.disks.x),
-                               np.asarray(simm.state.disks.x),
-                               rtol=0, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(sim1.state.disks.v),
-                               np.asarray(simm.state.disks.v),
-                               rtol=0, atol=1e-7)
-
-
-@pytest.mark.slow  # interpret-mode fused window kernel inside shard_map
-def test_pallas_sharded_coupling_k_openbc_bf16():
-    """The two machineries unique to the sharded coupled WINDOW path
-    in one scene: in-kernel Zou/He per inner step (the k=1 coupled_step
-    applies open boundaries in an EXTERNAL fixup, so the window kernel's
-    in-kernel closure with the global row offset is new behavior on the
-    coupled path) and bf16 f-storage (16-row prehalo granule + storage
-    shift through the window). Must match the single-chip windowed
-    chunk at bf16 tolerance."""
-    mesh = _mesh(2, 1)
-    cfg = SimConfig(nx=128, ny=128, tau=0.8, dtype="float32", g_py=-1e-4,
-                    buoyancy=True, rho_s=2.0, kn=0.5, gamma_n=0.5, n_sub=3,
-                    bc_west="inlet", bc_east="outlet", u_inlet=0.05,
-                    inlet_profile="poiseuille", f_storage="bfloat16",
-                    coupling_k=2)
-    disks = [
-        DiskSpec(64.0, 64.0, 3.0),           # straddles the shard seam
-        DiskSpec(40.2, 40.1, 2.5, vx=0.01),
-    ]
-    n = 8  # one cadence block = four k=2 windows
-    sim1 = Simulation(cfg, disks, use_pallas=True)
-    sim1.state = sim1._chunk_fn(n)(sim1.state)
-    simm = Simulation(cfg, disks, use_pallas=True, mesh=mesh)
-    simm.state = simm._chunk_fn(n)(simm.state)
-    assert int(simm.state.step) == n
-    np.testing.assert_allclose(np.asarray(sim1.state.f, np.float32),
-                               np.asarray(simm.state.f, np.float32),
-                               rtol=0, atol=3e-4)
-    np.testing.assert_allclose(np.asarray(sim1.state.disks.x),
-                               np.asarray(simm.state.disks.x),
-                               rtol=0, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(sim1.state.disks.v),
-                               np.asarray(simm.state.disks.v),
-                               rtol=0, atol=1e-5)
-
-
-@pytest.mark.slow  # ~80 s interpret-mode; (4,1) coupled covers the quick lane
-def test_pallas_sharded_coupled_axis_x_matches():
-    """Simulation(mesh=...) with a narrow disk column picks the
-    transposed ('x') slab orientation; the sharded fused path must
-    still match the unsharded fused path bit-for-bit-ish."""
-    mesh = _mesh(4, 1)
-    cfg = SimConfig(nx=256, ny=128, tau=0.8, dtype="float32", g_py=-1e-4,
-                    buoyancy=True, rho_s=2.0, kn=0.5, gamma_n=0.5, n_sub=5,
-                    bc_west="wall", bc_east="wall")
-    disks = [DiskSpec(20.0, 30.0, 3.0), DiskSpec(26.5, 90.0, 2.5),
-             DiskSpec(22.0, 64.0, 2.0, vx=0.01)]
-    s1 = Simulation(cfg, disks, use_pallas=True)
-    s2 = Simulation(cfg, disks, use_pallas=True, mesh=mesh)
-    assert s1.dem_axis == "x" and s2.dem_axis == "x"
-    for _ in range(3):
-        s1.step()
-        s2.step()
-    np.testing.assert_allclose(np.asarray(s1.state.f), np.asarray(s2.state.f),
-                               rtol=0, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(s1.state.disks.x),
-                               np.asarray(s2.state.disks.x),
-                               rtol=0, atol=1e-6)
-
-
-@pytest.mark.slow  # interpret-mode coupled builds ~40 s; the sample
-# variant covers the quick lane - this pins the ramp coverage tier
-def test_pallas_sharded_coupled_ramp_matches():
-    """eps_method='ramp' through the sharded canvas stamp + in-kernel
-    reduce (the speed tier of SURVEY C9 on the mesh path) vs the
-    single-chip fused path at the same eps_method."""
-    mesh = _mesh(4, 1)
-    cfg = SimConfig(nx=128, ny=128, tau=0.8, dtype="float32", g_py=-1e-4,
-                    buoyancy=True, rho_s=2.0, kn=0.5, gamma_n=0.5, n_sub=5,
-                    bc_west="wall", bc_east="wall", eps_method="ramp")
-    disks = [
-        DiskSpec(64.0, 64.0, 3.0),           # straddles the mesh center
-        DiskSpec(32.2, 96.1, 2.5),
-        DiskSpec(90.0, 31.9, 2.0, vx=0.01),
-    ]
-    sref, ssh = _run_both_pallas(cfg, disks, mesh, 2)
-    np.testing.assert_allclose(np.asarray(sref.f), np.asarray(ssh.f),
-                               rtol=0, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(sref.disks.x),
-                               np.asarray(ssh.disks.x), rtol=0, atol=1e-6)
-
-
-@pytest.mark.slow  # same cost class as the ramp variant above
-def test_pallas_sharded_coupled_kt_matches():
-    """kt > 0 Cundall-Strack springs on the mesh path: disks are
-    replicated, so every shard advances the identical spring state
-    (slab kernel or XLA fallback, whichever slab_supported picks) and
-    the psum'd hydro forces feed the same subcycle - contact history
-    (ct_j/ct_xi) must match the single-chip fused path."""
-    mesh = _mesh(4, 1)
-    cfg = SimConfig(nx=128, ny=128, tau=0.8, dtype="float32", g_py=-1e-4,
-                    buoyancy=True, rho_s=2.0, kn=0.5, gamma_n=0.5,
-                    gamma_t=0.2, kt=0.4, mu=0.3, n_sub=5,
-                    bc_west="wall", bc_east="wall")
-    disks = [
-        DiskSpec(64.0, 64.0, 3.0),
-        # overlapping pair (center distance 5.905 < 6): live spring.
-        # (64.2, 70.1) as originally written is 6.103 apart - NEVER in
-        # contact, so the spring-engaged assert below failed latently.
-        DiskSpec(64.2, 69.9, 3.0),
-        DiskSpec(90.0, 31.9, 2.0, vx=0.01),
-    ]
-    sref, ssh = _run_both_pallas(cfg, disks, mesh, 2)
-    np.testing.assert_allclose(np.asarray(sref.f), np.asarray(ssh.f),
-                               rtol=0, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(sref.disks.x),
-                               np.asarray(ssh.disks.x), rtol=0, atol=1e-6)
-    assert np.asarray(np.abs(sref.disks.ct_xi)).max() > 0  # spring engaged
-    np.testing.assert_array_equal(np.asarray(sref.disks.ct_j),
-                                  np.asarray(ssh.disks.ct_j))
-    np.testing.assert_allclose(np.asarray(sref.disks.ct_xi),
-                               np.asarray(ssh.disks.ct_xi),
-                               rtol=0, atol=1e-6)
-
-
-@pytest.mark.parametrize("meshdims", [
-    pytest.param((4, 1), marks=pytest.mark.slow),  # 1D-mesh
-    # lowering keeps its quick rep in test_pallas_sharded_fluid
-    # _matches[(4,1)]; derived families run the (2,2) superset
-    # quick (r5 lane trim)
-    (2, 2)])
-def test_pallas_sharded_temporal_block_matches(meshdims):
-    """Sharded temporal blocking (k=4 steps per halo exchange, edge BB
-    in-kernel via mesh-position flags) vs the plain oracle, with mixed
-    walls + moving lid so every edge-flag path fires."""
-    mesh = _mesh(*meshdims)
-    cfg = SimConfig(nx=512, ny=64, tau=0.7, gy=-1e-5, dtype="float32",
-                    bc_west="wall", bc_east="wall", uw_north=0.05)
-    sim = Simulation(cfg)
-    step_ref = jax.jit(make_step_fn(cfg, None))
-    kstep = jax.jit(make_sharded_step(cfg, None, mesh, use_pallas=True,
-                                      temporal_k=4))
-    s_ref = sim.state
-    s_sh = shard_state(sim.state, mesh)
-    for _ in range(8):
-        s_ref = step_ref(s_ref)
-    for _ in range(2):
-        s_sh = kstep(s_sh)
-    assert int(s_sh.step) == 8
-    np.testing.assert_allclose(np.asarray(s_ref.f), np.asarray(s_sh.f),
-                               rtol=0, atol=1e-6)
-
-
-@pytest.mark.parametrize("meshdims,ybc", [
-    ((4, 1), "wall"), ((2, 2), "periodic"),
-])
-def test_pallas_sharded_temporal_openbc_matches(meshdims, ybc):
-    """Zou/He open boundaries under SHARDED temporal blocking: the
-    closures run in-kernel per inner step on the global-edge shards,
-    with the shard's global row offset (edge-array slot 4) feeding the
-    inlet profile. periodic-y exercises cross-shard wrapped global rows
-    on the halo."""
-    kw = dict(bc_south="wall", bc_north="wall") if ybc == "wall" else dict(
-        bc_south="periodic", bc_north="periodic")
-    mesh = _mesh(*meshdims)
-    cfg = SimConfig(nx=128 * mesh.shape["x"], ny=64, tau=0.7,
-                    dtype="float32", bc_west="inlet", bc_east="outlet",
-                    u_inlet=0.06, inlet_profile="poiseuille", **kw)
-    sim = Simulation(cfg)
-    step_ref = jax.jit(make_step_fn(cfg, None))
-    kstep = jax.jit(make_sharded_step(cfg, None, mesh, use_pallas=True,
-                                      temporal_k=4))
-    s_ref = sim.state
-    s_sh = shard_state(sim.state, mesh)
-    for _ in range(8):
-        s_ref = step_ref(s_ref)
-    for _ in range(2):
-        s_sh = kstep(s_sh)
-    assert int(s_sh.step) == 8
-    np.testing.assert_allclose(np.asarray(s_ref.f), np.asarray(s_sh.f),
-                               rtol=1e-5, atol=2e-6)
-
-
-@pytest.mark.slow  # ~28 s; sharded temporal parity stays quick via
-# test_pallas_sharded_temporal_block_matches
-def test_simulation_mesh_temporal_chunks_match():
-    """Simulation(mesh=...).run through the chunk driver mixing k-step
-    macros + single-step remainder (11 = 2x4 + 3) on the sharded
-    temporal path."""
-    mesh = _mesh(2, 2)
-    cfg = SimConfig(nx=512, ny=64, tau=0.8, gx=1e-5, dtype="float32",
-                    out_interval=11)
-    s1 = Simulation(cfg)
-    s2 = Simulation(cfg, use_pallas=True, mesh=mesh)
-    s1.run(11)
-    s2.run(11)
-    assert int(s2.state.step) == 11
-    np.testing.assert_allclose(np.asarray(s1.state.f), np.asarray(s2.state.f),
-                               rtol=0, atol=1e-6)
-
-
-@pytest.mark.slow  # two interpret-mode fused coupled builds (~3 min)
-def test_simulation_mesh_coupled_chunks_match():
-    """Simulation(mesh=...).run on a coupled deck goes through the
-    sharded Verlet-cadence chunk (make_sharded_coupled_chunk: binning
-    rebuilt every BIN_CADENCE steps INSIDE shard_map) and must match the
-    single-chip Verlet-cadence chunk. 11 = 8 + 3 exercises both the
-    outer fori_loop and the remainder path."""
-    mesh = _mesh(4, 1)
-    cfg = SimConfig(nx=128, ny=128, tau=0.8, dtype="float32", g_py=-1e-4,
-                    buoyancy=True, rho_s=2.0, kn=0.5, gamma_n=0.5, n_sub=5,
-                    bc_west="wall", bc_east="wall", out_interval=11)
-    disks = [DiskSpec(64.0, 64.0, 3.0), DiskSpec(32.2, 96.1, 2.5),
-             DiskSpec(90.0, 31.9, 2.0, vx=0.01)]
-    s1 = Simulation(cfg, disks, use_pallas=True)
-    s2 = Simulation(cfg, disks, use_pallas=True, mesh=mesh)
-    s1.run(11)
-    s2.run(11)
-    assert int(s2.state.step) == 11
-    assert int(s2.state.overflow) == 0
-    np.testing.assert_allclose(np.asarray(s1.state.f), np.asarray(s2.state.f),
-                               rtol=0, atol=5e-6)
-    np.testing.assert_allclose(np.asarray(s1.state.disks.x),
-                               np.asarray(s2.state.disks.x),
-                               rtol=0, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(s1.state.disks.v),
-                               np.asarray(s2.state.disks.v),
-                               rtol=0, atol=1e-6)
+        Simulation(cfg, mesh=mesh)
+    with pytest.raises(ValueError, match="float32-storage"):
+        make_sharded_step(cfg, None, mesh)
 
 
 def test_mesh_bf16_storage_rejected():
-    """mesh + bf16 outside the pure-fluid Pallas path must be rejected
-    at construction: those sharded steps consume state.f raw, and
-    shifted-bf16 g would silently collide to NaN (rho = sum(g) = 0 at
-    rest). The 16x32 shard here also fails the 16-row bf16 granule on
-    the Pallas path."""
-    mesh = _mesh(2, 2)
-    cfg = SimConfig(nx=128, ny=32, tau=0.8, dtype="float32",
-                    f_storage="bfloat16")
+    """The refusal holds for coupled decks and 1D meshes too, and the
+    same deck runs on one device."""
+    mesh = _mesh(4, 1)
+    cfg = SimConfig(nx=64, ny=32, tau=0.8, dtype="float32",
+                    f_storage="bfloat16", max_disks=1)
+    disks = [DiskSpec(30.0, 16.0, 3.0)]
     with pytest.raises(ValueError, match="raw f32"):
-        Simulation(cfg, mesh=mesh)
-    with pytest.raises(ValueError, match="16"):
-        Simulation(cfg, use_pallas=True, mesh=mesh)
+        Simulation(cfg, disks, mesh=mesh)
+    sim = Simulation(cfg, disks)
+    sim.run(2)
+    assert int(sim.state.step) == 2
 
 
 def test_simulation_mesh_api_matches():
@@ -703,25 +226,6 @@ def test_sharded_paranoia_runs():
     assert int(sim.state.fail_step) == -1
 
 
-def test_pallas_supported_mesh_canvas():
-    """The mesh-aware support check must reject what the sharded Pallas
-    path cannot run: a stamp window that fits the GLOBAL lattice's tiles
-    but not the padded per-shard canvas's (previously a raw trace-time
-    assert deep inside the first step)."""
-    from lbmdem_tpu.simulation import pallas_supported
-
-    mesh = _mesh(4, 1)
-    cfg = SimConfig(nx=1024, ny=576, tau=0.8, max_disks=4, window=20,
-                    dtype="float32", bc_west="wall", bc_east="wall",
-                    bc_south="wall", bc_north="wall")
-    assert pallas_supported(cfg) is None  # single-chip: 64x128 tiles
-    reason = pallas_supported(cfg, mesh)  # canvas 208 rows -> 16-row tiles
-    assert reason is not None and "stamp" in reason
-    # non-dividing mesh gets a clear reason, not an assert
-    bad = SimConfig(nx=1024, ny=50, tau=0.8, dtype="float32")
-    assert "mesh" in pallas_supported(bad, mesh)
-
-
 _DIST2_WORKER = """
 import os
 import numpy as np
@@ -732,13 +236,13 @@ os.environ["XLA_FLAGS"] = (
 )
 import jax
 jax.config.update("jax_platforms", "cpu")
-from lbmdem_tpu.parallel import init_distributed
+from lbmdem.parallel import init_distributed
 init_distributed()  # topology from JAX_* env vars
 from jax.sharding import NamedSharding, PartitionSpec as P
-from lbmdem_tpu.config import SimConfig
-from lbmdem_tpu.parallel import make_mesh, make_sharded_step
-from lbmdem_tpu.parallel.sharding import state_specs
-from lbmdem_tpu.simulation import Simulation, make_step_fn
+from lbmdem.config import SimConfig
+from lbmdem.parallel import make_mesh, make_sharded_step
+from lbmdem.parallel.sharding import state_specs
+from lbmdem.simulation import Simulation, make_step_fn
 
 assert jax.process_count() == 2 and jax.device_count() == 8
 cfg = SimConfig(nx=32, ny=16, tau=0.8, gx=1e-5, dtype="float64",
@@ -827,7 +331,7 @@ def test_init_distributed_single_process():
     code = """
 import jax
 jax.config.update('jax_platforms', 'cpu')
-from lbmdem_tpu.parallel import init_distributed, process_info
+from lbmdem.parallel import init_distributed, process_info
 init_distributed(coordinator_address='localhost:12399',
                  num_processes=1, process_id=0)
 pid, pn, loc, glob = process_info()
@@ -844,13 +348,12 @@ print('DIST_OK')
 
 
 def test_ici_witness_xla_bytes():
-    """The ICI budget table's XLA width-1 formula vs the compiler: lower
+    """The halo-bytes model of the sharded step vs the compiler: lower
     the sharded f64 step on a (2,2) mesh and assert the summed
     collective-permute payload in the optimized HLO equals
-    xla_bytes(h, w, 8) exactly (tools/ici_budget.py turns the same
-    check into the full --witness table; the Pallas rows are
-    slow-marked below)."""
-    from tools.ici_budget import hlo_collective_bytes, xla_bytes
+    xla_bytes(h, w, 8) exactly (tools/halo_bytes.py --witness runs the
+    same check plus the coupled force psum)."""
+    from tools.halo_bytes import hlo_collective_bytes, xla_bytes
 
     mesh = _mesh(2, 2)
     cfg = SimConfig(nx=64, ny=32, tau=0.8, gx=1e-6, dtype="float64")
@@ -863,13 +366,20 @@ def test_ici_witness_xla_bytes():
     assert ar == 0  # pure fluid: no force psum
 
 
-@pytest.mark.slow  # five sharded lowerings incl. two interpret-Pallas
+@pytest.mark.slow  # two sharded lowerings
 def test_ici_witness_full_table():
-    """tools/ici_budget.py --witness in-process: every row of the ICI
-    budget table (Pallas f32/bf16 geometry, temporal-k amortization,
-    XLA width-1, coupled psum) matches the compiled HLO collectives."""
-    from tools.ici_budget import witness
+    """tools/halo_bytes.py --witness in-process: the fluid and coupled
+    sharded steps' compiled collectives match the model."""
+    from tools.halo_bytes import witness
 
     if len(jax.devices()) < 4:
         pytest.skip("need 4 devices")
     witness((2, 2))
+
+
+def test_dryrun_multichip_four_devices():
+    """The driver-facing dry run: the coupled sharded step on a
+    4-device virtual mesh matches the unsharded step."""
+    from __graft_entry__ import dryrun_multichip
+
+    dryrun_multichip(4)

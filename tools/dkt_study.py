@@ -32,9 +32,9 @@ method-independent quantitative signatures:
      (|dx| between centers exceeds d/2) - the vertical pair is unstable
      at rho_s/rho_f = 1.01.
 
-Run: python tools/dkt_study.py [--fast]   (CPU f64 oracle by default;
-used by tests/test_scenarios.py::test_dkt_literature_anchor and the
-validate_tpu 'dktlit' stage, which runs the compiled f32 path on TPU.)
+Run: python -m tools.dkt_study [--fast]   (f64 by default; used by
+tests/test_scenarios.py::test_dkt_literature_anchor and the
+tools/validate.py 'dktlit' leg, which runs the f32 path on the device.)
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def build(nx=120, tau=0.55, dtype="float64", n_sub=10):
     """(cfg, disks, dt_s, dx_cm): the literature DKT deck in lattice
     units at `nx` cells across the 2 cm channel. dt follows from
     matching nu: nu_lat = (tau - 1/2)/3 = nu_phys * dt / dx^2."""
-    from lbmdem_tpu.config import DiskSpec, SimConfig
+    from lbmdem.config import DiskSpec, SimConfig
 
     dx = WIDTH_CM / nx
     ny = int(round(HEIGHT_CM / dx))
@@ -87,16 +87,16 @@ def build(nx=120, tau=0.55, dtype="float64", n_sub=10):
     return cfg, disks, dt, dx
 
 
-def run_study(nx=120, tau=0.55, dtype="float64", use_pallas=False,
+def run_study(nx=120, tau=0.55, dtype="float64",
               t_max_s=5.0, sample_every=25, verbose=True):
     """Run until kiss + 2 s (or t_max_s); return a dict of phase
     metrics in PHYSICAL units (seconds / cm)."""
     import jax
 
-    from lbmdem_tpu.simulation import Simulation
+    from lbmdem.simulation import Simulation
 
     cfg, disks, dt, dx = build(nx=nx, tau=tau, dtype=dtype)
-    sim = Simulation(cfg, disks, use_pallas=use_pallas)
+    sim = Simulation(cfg, disks)
     max_steps = int(t_max_s / dt)
     rows = []  # (t_s, y_trail, y_lead, x_trail, x_lead, n_contacts)
     t_kiss = None
@@ -164,7 +164,7 @@ def run_study(nx=120, tau=0.55, dtype="float64", use_pallas=False,
 
 
 # Recorded calibration of the production-resolution published-geometry
-# runs (nx=120 f64 oracle and nx=128 f32 fused path agree - the
+# runs (nx=120 f64 and nx=128 f32 agree - the
 # anchors are not precision-marginal): kissing at 1.505 s, drafting
 # ratio 1.139.
 PIN_NX128 = (1.505, 1.139)
@@ -221,14 +221,14 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true", help="force CPU")
     ap.add_argument("--fast", action="store_true",
                     help="nx=80 f64 oracle (CPU-test size)")
-    ap.add_argument("--pallas", action="store_true",
-                    help="compiled fused path (f32)")
+    ap.add_argument("--f32", action="store_true",
+                    help="float32 at nx=128 (the device configuration)")
     args = ap.parse_args(argv)
     import jax
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    if not args.pallas:
+    if not args.f32:
         # the f64 oracle needs x64 enabled (outside pytest's conftest);
         # calibration note: the study also passes in f32 (t_kiss 1.505 s,
         # draft ratio 1.139 measured with x64 off) - the anchors are not
@@ -237,9 +237,9 @@ def main(argv=None):
     pin = None
     if args.fast:
         m = run_study(nx=80)
-    elif args.pallas:
-        m = run_study(nx=128, dtype="float32", use_pallas=True)
-        pin = PIN_NX128  # recorded on this config (f32 fused path)
+    elif args.f32:
+        m = run_study(nx=128, dtype="float32")
+        pin = PIN_NX128  # recorded on this config (f32)
     else:
         m = run_study()
         pin = PIN_NX128  # f64 oracle tracks the f32 value closely
